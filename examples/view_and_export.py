@@ -6,7 +6,7 @@ write .vdb for the DCC -> inspect interactively (HNanoViewer's role).
 
 Usage:
   JAX_PLATFORMS=cpu python examples/view_and_export.py        # small demo
-  python examples/view_and_export.py --frames 48 --size 128   # on TPU
+  python examples/view_and_export.py --frames 48 --size 128   # on a GPU
 then open http://localhost:8642/.
 """
 

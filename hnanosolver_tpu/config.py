@@ -44,27 +44,6 @@ class SolverParams:
     # but never-implemented design). With "mg", ``iterations`` is the number
     # of V-cycles and a hierarchy must be passed to step().
     pressure_solver: str = "rbgs"
-    # Red-black pairs per cross-tile halo refresh in the Pallas pressure
-    # path. 1 = textbook RBGS (halo refreshed every color sweep); higher
-    # gathers the halo once per N pairs. None (default) = by precision
-    # tier: 1 for "parity", 5 otherwise — lag-5 measured RESIDUAL-EQUAL
-    # to the fresh-halo textbook solve at 50 iterations on the bench
-    # plume (L2 206.6 vs 208.8, Linf 3.75 vs 2.34 on |div|inf 9.4; lag
-    # 10+ degrades) at ~2/3 the time (probe r3/037). The reference's own
-    # cross-block ordering is chaotic (in-place global updates,
-    # Kernel.cu:591-623), so both are within its semantics class; tests
-    # compare by residual (SURVEY §7.4).
-    halo_lag: int | None = None
-    # "parity":   true-f32 MXU passes everywhere (measured ~1e-6 rel
-    #             sampling err on v5e) + fresh-halo pressure — the
-    #             validation tier for bit-level / dense-oracle checks.
-    # "balanced": manual bf16x3 interpolation dots — measured 1.5e-5
-    #             rel/step on the bench plume (probe r3/028), 6x inside
-    #             the <=1e-4-vs-CUDA reference tier, ~25% faster steps.
-    #             THE PRODUCTION DEFAULT.
-    # "fast":     single-pass bfloat16 MXU interpolation (~4e-3 rel —
-    #             preview-speed mode, outside the parity tier).
-    precision: str = "balanced"
     mg_pre: int = 2  # pre-smoothing sweeps per level
     mg_post: int = 2  # post-smoothing sweeps per level
     mg_coarsest: int = 24  # sweeps at the coarsest level
@@ -89,13 +68,6 @@ class SolverParams:
 
     def replace(self, **kw) -> "SolverParams":
         return dataclasses.replace(self, **kw)
-
-    @property
-    def effective_halo_lag(self) -> int:
-        """halo_lag resolved by precision tier when unset (see field doc)."""
-        if self.halo_lag is not None:
-            return self.halo_lag
-        return 1 if self.precision == "parity" else 5
 
     @property
     def inv_voxel_size(self) -> float:

@@ -4,7 +4,7 @@ simulation evolves, remapping field state between topologies.
 The reference rebuilds its NanoVDB index grid from scratch every cook from
 the union of all field topologies plus dilation
 (`/root/reference/src/SOP/HNanoSolver/SOP_HNanoSolver.cpp:188-199`,
-`HNanoSolver.cu:375-384`). The TPU equivalent keeps a capacity-padded table
+`HNanoSolver.cu:375-384`). Here a capacity-padded table is kept
 and *remaps by key*: activation within capacity changes array values only
 (no recompile); capacity grows by doubling (amortized recompiles).
 

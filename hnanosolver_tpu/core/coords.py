@@ -5,7 +5,7 @@ coord -> 1-based linear offset, 0 = inactive/background
 (`/root/reference/src/Utils/Stencils.hpp:51-93`). We replace the tree with a
 *sorted packed-key table*: each active 8^3 leaf tile's coordinate is packed
 into one int32 key; lookups are vectorized binary searches
-(``jnp.searchsorted``), which map well onto the TPU VPU and are fully
+(``jnp.searchsorted``), which vectorize and are fully
 deterministic (no hash collisions, no per-frame GPU tree build like the
 reference's ``voxelsToGrid``, `/root/reference/src/Cuda/HNanoSolver.cu:375-384`).
 

@@ -1,20 +1,18 @@
 """Canonical field layouts and flat<->block conversion.
 
-TPU registers tile the LAST TWO dims of an array onto (8 sublanes, 128
-lanes). A `[T,8,8,8]` field therefore uses 8 of 128 lanes (16x waste) and a
-`[T,8,8,8,3]` velocity uses 3 of 128 (42x waste) — measured as 17 ms per
-pressure sweep and 2.6 s per advection at 2.1M voxels. The canonical layouts
-used by every hot op are:
+Every hot op works on one contiguous 512-element row per 8^3 tile, so a
+tile is one row gather and its neighbours are index arithmetic within the
+row. The canonical layouts are:
 
-- scalar field:   ``[T, 512]``      (512 = 4x128 lanes; x-major in-tile
-                                     order col = x*64 + y*8 + z)
-- velocity:       ``[3, T, 512]``   (channel-major: each component tiles
-                                     perfectly; ops touch components anyway)
+- scalar field:   ``[T, 512]``      (x-major in-tile order
+                                     col = x*64 + y*8 + z)
+- velocity:       ``[3, T, 512]``   (channel-major: ops touch components
+                                     separately anyway)
 
 Block views ``[T,8,8,8]`` / ``[T,8,8,8,3]`` exist only at API boundaries
 (I/O, tests, conversion) via the helpers here.
 
-In-tile neighbor access in flat layout is a lane roll; see
+In-tile neighbor access in flat layout is a roll along the row; see
 ``ops/stencil.py`` / ``ops/pressure.py``.
 """
 

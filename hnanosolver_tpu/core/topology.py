@@ -1,4 +1,4 @@
-"""Sparse tile topology: the TPU-native analog of NanoVDB's ValueOnIndex grid.
+"""Sparse tile topology: the flat-array analog of NanoVDB's ValueOnIndex grid.
 
 The reference builds a NanoVDB index tree on the GPU every frame
 (`/root/reference/src/Cuda/HNanoSolver.cu:375-384`) and walks it with cached
@@ -48,32 +48,6 @@ class Topology:
     # activation within a fixed capacity therefore never recompiles —
     # only capacity growth does (the replacement for the reference's
     # per-cook voxelsToGrid rebuild).
-    #
-    # Sampling chunk plan (built host-side by build_topology; None when a
-    # Topology is assembled by other paths, in which case samplers fall
-    # back to the full 27-table): tiles are processed in contiguous chunks
-    # of SAMPLE_CHUNK rows; chunk_uniq[c] lists the sorted unique tile rows
-    # of chunk c's 27-neighborhoods (the VMEM-resident working set, ~2x the
-    # chunk instead of 27x), chunk_lnbr remaps nbr into chunk-local indices.
-    chunk_uniq: Optional[jax.Array] = None  # [n_chunks, U] int32 global rows
-    chunk_lnbr: Optional[jax.Array] = None  # [T, 27] int32 chunk-local rows
-    # Dual (corner-lattice) sampling plan for the narrow 16^3-window
-    # megakernel (ops/pallas_bfecc): window row (Xw,Yw,Zw) of tile t equals
-    # the half-shifted field S[d][l] = f[d*8 + l - 4] at dual tile
-    # d = t + (Xw,Yw,Zw), so the whole in-kernel window combine collapses
-    # to a per-chunk table of S rows. chunk_dsrc[c, u] lists the 8 source
-    # tile rows (d-1+b, b in {0,1}^3, 0 where absent) of chunk c's u-th
-    # unique dual tile; chunk_ldual[t, j] is the chunk-local dual-row index
-    # of t + delta_j (delta_j = (j>>2, (j>>1)&1, j&1); entry 0 = null row).
-    chunk_dsrc: Optional[jax.Array] = None  # [n_chunks, Ud, 8] int32 rows
-    chunk_ldual: Optional[jax.Array] = None  # [T, 8] int32 chunk-local rows
-    # chunk_dloc remaps chunk_dsrc's GLOBAL source rows into positions in
-    # chunk_uniq[c] (every dual source is one of its owning tile's 27
-    # neighbors, so it is always present in the chunk's unique set). This
-    # is the on-chip combine kernel's indirection: with it, the dual table
-    # is derived from the 27-table in VMEM (pallas_bfecc.combine_dual)
-    # instead of rebuilt by a second HBM gather+permute pass.
-    chunk_dloc: Optional[jax.Array] = None  # [n_chunks, Ud, 8] int32 -> [0, U)
 
     @property
     def capacity(self) -> int:
@@ -85,17 +59,8 @@ class Topology:
         Host-side only (concretizes n_active)."""
         return int(self.n_active) * C.TILE_VOXELS
 
-    @property
-    def sample_chunk(self) -> int:
-        """Tiles per sampling chunk (capacity // n_chunks)."""
-        return self.capacity // self.chunk_uniq.shape[0]
-
     def tree_flatten(self):
-        return (
-            self.keys, self.origins, self.nbr, self.n_active,
-            self.chunk_uniq, self.chunk_lnbr,
-            self.chunk_dsrc, self.chunk_ldual, self.chunk_dloc,
-        ), ()
+        return (self.keys, self.origins, self.nbr, self.n_active), ()
 
     @classmethod
     def tree_unflatten(cls, aux, children):
@@ -125,125 +90,6 @@ def _round_capacity(n: int) -> int:
             cap *= 2
         return cap
     return ((int(need * 1.25) + 2047) // 2048) * 2048
-
-
-SAMPLE_CHUNK = 512  # tiles per sampling chunk (VMEM-sized working sets)
-
-
-def _chunk_plan(nbr: np.ndarray, capacity: int):
-    """Per-chunk unique 27-neighborhood working sets + local remap.
-
-    Returns (chunk_uniq [n_chunks, U], chunk_lnbr [T, 27]) — see Topology.
-    U is the max unique count over chunks, rounded up to a multiple of 8;
-    padding entries point at the null row 0 (harmless duplicate gathers).
-    """
-    C_ = min(SAMPLE_CHUNK, capacity)
-    nc = capacity // C_
-    uniqs = []
-    U = 0
-    for c in range(nc):
-        u = np.unique(np.concatenate([[0], nbr[c * C_ : (c + 1) * C_].ravel()]))
-        uniqs.append(u)
-        U = max(U, len(u))
-    U = ((U + 7) // 8) * 8
-    uq = np.zeros((nc, U), np.int32)
-    ln = np.zeros((capacity, 27), np.int32)
-    for c in range(nc):
-        u = uniqs[c]
-        uq[c, : len(u)] = u
-        ln[c * C_ : (c + 1) * C_] = np.searchsorted(
-            u, nbr[c * C_ : (c + 1) * C_]
-        ).astype(np.int32)
-    return uq, ln
-
-
-_DUAL_OFFSETS = np.array(
-    [(bx, by, bz) for bx in (0, 1) for by in (0, 1) for bz in (0, 1)],
-    dtype=np.int32,
-)  # [8, 3]; index j = bx*4 + by*2 + bz (matches the window index Xw*4+Yw*2+Zw)
-
-
-def _dual_plan(origins: np.ndarray, keys_np: np.ndarray, capacity: int):
-    """Per-chunk unique DUAL-tile (corner-lattice) working sets for the
-    half-shifted sampling table (see the chunk_dsrc/chunk_ldual field doc).
-
-    Returns (chunk_dsrc [nc, Ud, 8], chunk_ldual [T, 8]). Row 0 of every
-    chunk is the all-null dual row (8 null sources -> zeros); padding tiles
-    point at it. Dual keys are packed int64 with a wide offset (tile+1 can
-    sit one past the packable int32 key range)."""
-    C_ = min(SAMPLE_CHUNK, capacity)
-    nc = capacity // C_
-    n = int(keys_np.shape[0])
-
-    def pack64(t):
-        t = t.astype(np.int64) + 1024
-        return (t[..., 0] * 4096 + t[..., 1]) * 4096 + t[..., 2]
-
-    def src_rows(dcoords):
-        """[m, 3] dual coords -> [m, 8] source tile rows (0 where absent)."""
-        if not n:
-            return np.zeros((len(dcoords), 8), np.int32)
-        cand = dcoords[:, None, :] - 1 + _DUAL_OFFSETS[None]  # [m, 8, 3]
-        ck = C.pack_keys_np(np.clip(cand, -C.TILE_OFFSET, C.TILE_OFFSET - 1))
-        pos = np.searchsorted(keys_np, ck)
-        pos_c = np.minimum(pos, n - 1)
-        ok = (keys_np[pos_c] == ck) & np.all(
-            (cand >= -C.TILE_OFFSET) & (cand < C.TILE_OFFSET), axis=-1
-        )
-        return np.where(ok, pos_c + 1, 0).astype(np.int32)
-
-    per_chunk = []  # (unique dual coords [m,3], dual keys sorted [m])
-    Ud = 1
-    for c in range(nc):
-        r0, r1 = c * C_, (c + 1) * C_
-        act = (np.arange(r0, r1) >= 1) & (np.arange(r0, r1) <= n)
-        org = origins[r0:r1][act]
-        if len(org):
-            dc = (org[:, None, :] + _DUAL_OFFSETS[None]).reshape(-1, 3)
-            dk, idx = np.unique(pack64(dc), return_index=True)
-            dc = dc[idx]
-        else:
-            dk = np.zeros((0,), np.int64)
-            dc = np.zeros((0, 3), np.int32)
-        per_chunk.append((dc, dk))
-        Ud = max(Ud, len(dk) + 1)
-    Ud = ((Ud + 7) // 8) * 8
-    dsrc = np.zeros((nc, Ud, 8), np.int32)
-    ldual = np.zeros((capacity, 8), np.int32)
-    for c in range(nc):
-        dc, dk = per_chunk[c]
-        if len(dc):
-            dsrc[c, 1 : len(dc) + 1] = src_rows(dc)
-            r0, r1 = c * C_, (c + 1) * C_
-            rows = np.arange(r0, r1)
-            act = (rows >= 1) & (rows <= n)
-            if act.any():
-                qc = (origins[r0:r1][act][:, None, :]
-                      + _DUAL_OFFSETS[None])  # [m, 8, 3]
-                ldual[rows[act]] = (
-                    np.searchsorted(dk, pack64(qc)) + 1
-                ).astype(np.int32)
-    return dsrc, ldual
-
-
-def _dual_local(uq: np.ndarray, dsrc: np.ndarray) -> np.ndarray:
-    """Remap chunk_dsrc's global source rows into chunk_uniq positions
-    (chunk_dloc — the combine kernel's VMEM-local indirection). Every dual
-    source of chunk c is one of its owning tile's 27 neighbors, hence in
-    uq[c]'s unique set; padding dual rows (all-null sources) land on the
-    null entry at position 0."""
-    nc, Ud, _ = dsrc.shape
-    dloc = np.zeros((nc, Ud, 8), np.int32)
-    for c in range(nc):
-        u = uq[c]
-        # uq rows are sorted-unique followed by zero padding; the true list
-        # is entry 0 (the null row) plus the nonzero tail.
-        cnt = 1 + int(np.count_nonzero(u))
-        pos = np.searchsorted(u[:cnt], dsrc[c])
-        if not np.array_equal(u[:cnt][np.minimum(pos, cnt - 1)], dsrc[c]):
-            raise AssertionError("dual source missing from chunk unique set")
-        dloc[c] = pos.astype(np.int32)
-    return dloc
 
 
 def build_topology(
@@ -291,46 +137,12 @@ def build_topology(
         found = keys_np[pos_c] == nbr_keys
         nbr[1 : n + 1] = np.where(found, pos_c + 1, 0).astype(np.int32)
 
-    uq, ln = _chunk_plan(nbr, cap)
-    dsrc, ldual = _dual_plan(origins, keys_np, cap)
-    topo = Topology(
+    return Topology(
         keys=jnp.asarray(full_keys),
         origins=jnp.asarray(origins),
         nbr=jnp.asarray(nbr),
         n_active=jnp.asarray(n, jnp.int32),
-        chunk_uniq=jnp.asarray(uq),
-        chunk_lnbr=jnp.asarray(ln),
-        chunk_dsrc=jnp.asarray(dsrc),
-        chunk_ldual=jnp.asarray(ldual),
     )
-    # chunk_dloc feeds ONLY the on-chip combine kernel, which is off by
-    # default (pallas_bfecc.COMBINE_TBL=None -> False, a measured negative
-    # result) — building it unconditionally made every topology build,
-    # including at-scale rebuilds, pay a host loop over all chunks plus an
-    # [nc, Ud, 8] HBM array nothing reads (r4 ADVICE). Opt in per build via
-    # the flag, or per topology via ensure_dual_local().
-    if BUILD_DLOC:
-        topo = ensure_dual_local(topo)
-    return topo
-
-
-# Build chunk_dloc (the combine kernel's indirection) during every
-# build_topology. Default off — see the comment at the call site.
-BUILD_DLOC = False
-
-
-def ensure_dual_local(topo: Topology) -> Topology:
-    """Return ``topo`` carrying chunk_dloc, computing it on demand (host
-    side). The combine-kernel probes and tests use this instead of paying
-    the build cost on every topology."""
-    if topo.chunk_dloc is not None:
-        return topo
-    if topo.chunk_uniq is None or topo.chunk_dsrc is None:
-        raise ValueError("ensure_dual_local needs a chunk-planned topology")
-    dloc = _dual_local(
-        np.asarray(topo.chunk_uniq), np.asarray(topo.chunk_dsrc)
-    )
-    return dataclasses.replace(topo, chunk_dloc=jnp.asarray(dloc))
 
 
 def build_topology_dense(shape, origin=(0, 0, 0), capacity=None) -> Topology:

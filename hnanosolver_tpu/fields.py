@@ -2,7 +2,7 @@
 
 The reference stores one coord array plus N named SoA value blocks
 (`/root/reference/src/Utils/GridData.hpp:16-166`), dense per 8^3 leaf
-(``totalVoxels = numLeaves * 512``). Here fields live in the TPU-canonical
+(``totalVoxels = numLeaves * 512``). Here fields live in the canonical
 flat layout (core/layout.py):
 
 - scalar fields: ``[T, 512]`` float32 (x-major in-tile order),

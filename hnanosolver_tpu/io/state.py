@@ -69,7 +69,9 @@ def load_npz(path: str) -> Tuple[Topology, FieldState, Optional[SolverParams], i
         )
         params = None
         if meta["params"]:
-            p = dict(meta["params"])
+            # keys of retired options (older checkpoints) are dropped
+            known = {f.name for f in dataclasses.fields(SolverParams)}
+            p = {k: v for k, v in meta["params"].items() if k in known}
             p["combustion"] = CombustionParams(**p["combustion"])
             params = SolverParams(**p)
         return topo, state, params, meta["frame"]

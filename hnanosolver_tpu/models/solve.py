@@ -290,7 +290,7 @@ def run_solve(
     (ops/advection.DISP_LIMIT) and ``warn`` loudly — there the backtrace
     deviates from the reference's unbounded trace
     (`/root/reference/src/Cuda/Kernel.cu:139`) and fields smear instead of
-    erroring (VERDICT r4 next-6: the deviation must be loud, not silent)."""
+    erroring (the deviation must be loud, not silent)."""
     from hnanosolver_tpu.ops.multigrid import hierarchy_for
 
     if inp.sdf is not None:

@@ -15,13 +15,13 @@ Scheme per voxel at position x (index space, scaled_dt = dt / dx):
 With an SDF: trace positions landing inside the solid are rejected back to
 the previous position; advect_vector additionally applies its no-slip tail.
 
-TPU mapping (flat [T,512] fields, [3,T,512] velocity):
+Mapping onto the flat layout ([T,512] fields, [3,T,512] velocity):
 - Trace displacements are relative to each voxel and CFL-clamped to < 7
   voxels, so every trilinear corner lies inside the tile's 3x3x3
   neighborhood. Each field's neighborhood is ONE contiguous row gather
-  (``[C, 27*512]``, perfectly lane-tiled), and each corner read is ONE
-  batched in-row gather — the two primitives measured at bandwidth on v5e.
-  No binary searches, no element gathers, no padded halo buffers.
+  (``[C, 27*512]``) and each corner read is ONE batched in-row gather —
+  the reference's 8-corner read, addressed through ``topo.nbr`` instead of
+  a tree probe. No binary searches, no padded halo buffers.
 - Corner indices and weights are computed once per trace position set and
   shared across all fields (the fused-kernel optimization).
 - The tile axis runs in ``lax.map`` chunks to bound the neighborhood-table
@@ -40,41 +40,12 @@ import jax.numpy as jnp
 from hnanosolver_tpu.core.layout import CX, CY, CZ, TILE
 from hnanosolver_tpu.core.topology import Topology
 from hnanosolver_tpu.ops import shifts as sh
-from hnanosolver_tpu.ops.interp import trilinear_mxu
 
-DEFAULT_CHUNK = 1024  # tiles per lax.map chunk (legacy pallas/mxu paths)
-# interpolation backend:
-#   "vmem"   — chunked unique-row tables resident in VMEM, one gather per
-#              advection reused by all passes (ops/pallas_interp2; fastest)
-#   "pallas" — per-tile 27-table kernel fed by a 27x XLA gather (round 1)
-#   "mxu"    — XLA one-hot contractions
-#   "gather" — 8-corner take_along_axis (the reference formulation; fast on
-#              CPU, catastrophic on TPU)
-# None -> auto: vmem on TPU (pallas if the topology has no chunk plan),
-# gather elsewhere.
-INTERP = None
-
-
-def _default_interp(topo: Optional[Topology] = None) -> str:
-    try:
-        dev = jax.devices()[0]
-        on_tpu = dev.platform == "tpu" or "TPU" in str(dev)
-    except Exception:  # pragma: no cover
-        on_tpu = False
-    if not on_tpu:
-        return "gather"
-    if topo is not None and topo.chunk_uniq is None:
-        return "pallas"
-    return "vmem"
+# Tiles per lax.map chunk of the sampling pass: bounds the [chunk, 27*512]
+# neighborhood tables to ~57 MB per field. A memory cap, not a tuned speed
+# setting; domains at or below one chunk run in a single map step.
+DEFAULT_CHUNK = 1024
 DISP_LIMIT = 7.0 - 1e-3  # max |displacement| per axis per trace (voxels)
-
-# Mixed-band forward dispatch: when the re-traced displacements all fit
-# the 16-window (max|d2| < CFL_MID at runtime), sample the forward pass
-# from the back pass's dual table instead of the wide 24-window kernel
-# (probe r4/126: the wide kernel is ~13 ms of the mixed scalar pass's
-# ~21 at bench size). True/None = on; False = always the wide kernel
-# (A/B probes only).
-FWD_NARROW = None
 
 
 def _clamp(d):
@@ -86,7 +57,7 @@ def cfl_clamped_count(topo: Topology, vel: jax.Array, dt: float,
     """Number of active voxels where a trace clamp CAN engage, diverging
     from the reference's unbounded trace (`Kernel.cu:139`).
 
-    Covers BOTH clamps (round-2 ADVICE): the backtrace clamps at
+    Covers BOTH clamps: the backtrace clamps at
     |u|*dt/dx > DISP_LIMIT, and the BFECC forward re-trace clamps
     d2 = d + u(back)*sdt, which |d2| <= 2*|d| bounds — so the conservative
     trigger is 2*|u|*dt/dx > DISP_LIMIT. Counts voxels that MAY deviate
@@ -132,315 +103,14 @@ def _sample(table, corners):
     return acc
 
 
-def _chunk_rows(topo: Topology, chunk: int):
-    T = topo.capacity
-    c = min(chunk, T)
-    return topo.nbr.reshape(T // c, c, 27)
-
-
-def _advect_vmem(
-    topo: Topology,
-    vel: jax.Array,
-    fields: Sequence[jax.Array],
-    scaled_dt: float,
-    sdf: Optional[jax.Array],
-    trace_order: int = 1,
-    fast="strict",
-    fields_are_velocity: bool = False,
-):
-    """BFECC sampling on TPU. Dispatches at runtime on the step CFL number
-    sdt*max|u| between (a) the fused narrow-window megakernel
-    (ops/pallas_bfecc — one launch, 16^3 windows, ~3.4x fewer MXU MACs;
-    CFL < CFL_LIMIT), (b) for SDF-free flows a MIXED split (CFL_LIMIT <=
-    CFL < CFL_MID: narrow back pass, XLA re-trace, wide forward pass —
-    0.8x the wide kernel, probe r4/078), and (c) the wide 24^3-window
-    kernel (up to the global DISP_LIMIT). All arms produce identical
-    samples to f32 rounding in their shared validity regions, so the
-    `lax.cond` tree is purely a performance switch."""
-    if trace_order != 1:
-        # RK backtraces need intermediate velocity sampling passes; only the
-        # multi-pass sampler supports them (the reference pipeline itself is
-        # first-order, Kernel.cu:129).
-        return _advect_vmem_wide(
-            topo, vel, fields, scaled_dt, sdf, trace_order, fast,
-            fields_are_velocity,
-        )
-    from hnanosolver_tpu.ops import pallas_bfecc as pb
-
-    base = [vel[0], vel[1], vel[2]]
-    if not fields_are_velocity:
-        base += list(fields)
-    f_lo = 0 if fields_are_velocity else 3
-    dx = _clamp(-vel[0] * scaled_dt)
-    dy = _clamp(-vel[1] * scaled_dt)
-    dz = _clamp(-vel[2] * scaled_dt)
-    # The narrow/wide switch needs sdt*max|u|. Read it off the CLAMPED
-    # displacements as max(max(d), -min(d)) — plain reduces over arrays the
-    # cond consumes anyway, so no |vel| elementwise temp is ever
-    # materialized (at 1024^3 each such temp is 526 MB). Equivalent:
-    # CFL_LIMIT < DISP_LIMIT, so the clamp can't mask a narrow-window pass.
-    def _amax(a):
-        return jnp.maximum(jnp.max(a), -jnp.min(a))
-
-    cfl = jnp.maximum(jnp.maximum(_amax(dx), _amax(dy)), _amax(dz))
-
-    if topo.chunk_dsrc is not None and pb.DUAL_TBL is not False:
-        # Dual-table mode: the narrow branch samples from the half-shifted
-        # S-row table (no in-kernel combine ladder — probe r4/044 measured
-        # it at 5-6 ms/scalar-pass) and the limiter bounds come from the
-        # memory-lean XLA face stencil instead of the kernel. min/max over
-        # the same {self, 6 faces} set with the same background-0 -> the
-        # bounds, and the clamped results, are bit-identical.
-        phi0s = jnp.stack(list(fields))
-        if phi0s.size * 4 * 2 > sh.MINMAX_VIEWS_BUDGET:
-            # At scale, precomputed bounds are 2 field-sized arrays held
-            # live across the WHOLE sampling pass — the limiter instead
-            # runs fused per row block after sampling (_bfecc_limit_blocks)
-            lohi = None
-        elif _tail_kernel_ok(topo):
-            # on-chip: the fused tail kernel computes bounds itself after
-            # sampling (one launch, fields read once) — bit-identical
-            lohi = None
-        else:
-            mins, maxs = sh.face_minmax_multi(topo, phi0s)
-            lohi = (jnp.minimum(phi0s, mins), jnp.maximum(phi0s, maxs))
-
-        def fused2(win):
-            def run(_):
-                pf, pbk = pb.bfecc_sample_fused(
-                    topo, base, dx, dy, dz, scaled_dt, f_lo, sdf, fast,
-                    win=win, minmax=False,
-                )
-                return jnp.stack(pf), jnp.stack(pbk)
-
-            return run
-
-        def mixed(_):
-            # 1.9 <= CFL < 3.9: back positions still fit the 16-window
-            # (K=256, dual table); only the re-trace needs the 24-window
-            # (K=576). Splitting the passes costs one extra launch and the
-            # re-trace in XLA but skips ~60% of the wide kernel's MACs —
-            # the full-wide kernel measured 3.3x narrow (probe r4/077).
-            # With the on-chip combine kernel, ONE 27-table of all base
-            # fields serves both passes: the back pass derives its dual
-            # table from it in VMEM and the wide forward pass reads it
-            # directly, so the whole dispatch does a single HBM row
-            # gather. Sharing is velocity-pass-only (f_lo == 0, where the
-            # forward span IS the table): feeding the scalar pass's wide
-            # kernel the velocity-bearing 8-field table measured SLOWER
-            # than rebuilding the lean 5-field one (probe r4/124 — the
-            # wide kernel's VMEM/table traffic scales with nf_all).
-            comb = pb.combine_ok(topo, len(base))
-            share = comb and f_lo == 0
-            # At-scale calls run in chunk SLICES (only a fraction of the
-            # table live at once) — a whole-domain prebuilt table would
-            # hold full-size bytes the sliced call ignores, so table
-            # sharing and the narrow forward dispatch are bench-class
-            # (unsliced) features; sliced domains keep the wide forward.
-            # The gate covers BOTH table plans (r4 ADVICE): the dual plan
-            # this dispatch prebuilds AND the 27-table plan the wide
-            # forward kernel slices on internally (U27 > Ud, different
-            # field count) — near the budget edge the dual gate alone
-            # could prebuild a whole-domain t27 that the wide call then
-            # ignores, holding full-size bytes live at scale.
-            nc_d, Ud_d = topo.chunk_dsrc.shape[:2]
-            nc27, U27 = topo.chunk_uniq.shape
-            nf_wide = len(base) if f_lo == 0 else len(base) - 3
-            unsliced = (
-                pb._pick_slices(nc_d, Ud_d, len(base)) <= 1
-                and pb._pick_slices(nc27, U27, max(nf_wide, 1)) <= 1
-            )
-            comb = comb and unsliced
-            share = share and unsliced
-            t27 = pb.build_table(topo, base) if comb else None
-            # ONE dual table serves the back pass AND (when the re-traced
-            # positions stay narrow — the common case) the forward pass.
-            tdual = None
-            if unsliced:
-                if comb:
-                    tdual = pb.build_table_dual_combine(topo, t27, len(base))
-                else:
-                    tdual = pb.build_table_dual(topo, base)
-            backs = pb.bfecc_sample_fused(
-                topo, base, dx, dy, dz, scaled_dt, 0, None, fast,
-                win=16, minmax=False, mode="back", tbl_dual=tdual,
-            )[0]
-            lim = pb.DISP_LIMIT
-            d2x = jnp.clip(dx + backs[0] * scaled_dt, -lim, lim)
-            d2y = jnp.clip(dy + backs[1] * scaled_dt, -lim, lim)
-            d2z = jnp.clip(dz + backs[2] * scaled_dt, -lim, lim)
-
-            # The re-trace displacement d2 = d + u(back)*sdt is BFECC's
-            # error-compensation term — for smooth flows it is O(CFL^2 *
-            # grad u), far smaller than the CFL bound that forced the wide
-            # window. Dispatch the forward pass on max|d2| AT RUNTIME:
-            # when every re-traced position still fits the 16-window
-            # (|d2| < CFL_MID, the same validity bound the back pass
-            # uses), sample from the SAME dual table the back pass built —
-            # the wide kernel (probe r4/126: ~13 ms of the mixed scalar
-            # pass's ~21, G capped at 8 by its 5x W-operand stack) and its
-            # separate 27-table build are skipped entirely.
-            d2cfl = jnp.maximum(jnp.maximum(_amax(d2x), _amax(d2y)),
-                                _amax(d2z))
-
-            def fwd_narrow(_):
-                return jnp.stack(pb.bfecc_sample_fused(
-                    topo, base, d2x, d2y, d2z, scaled_dt, f_lo, None, fast,
-                    win=16, minmax=False, mode="fwd", tbl_dual=tdual,
-                )[0])
-
-            def fwd_wide(_):
-                if share:
-                    return jnp.stack(pb.bfecc_sample_fused(
-                        topo, base, d2x, d2y, d2z, scaled_dt, f_lo, None,
-                        fast, win=24, minmax=False, mode="fwd", tbl27=t27,
-                    )[0])
-                # the forward pass samples only the advected fields (no
-                # re-trace, so the velocity operands the "both" kernel
-                # needs are dead weight here): for the scalar pass, drop
-                # them from the 24-window table build (~3/8 of its
-                # gathered bytes)
-                fwd_fields = base if f_lo == 0 else list(fields)
-                return jnp.stack(pb.bfecc_sample_fused(
-                    topo, fwd_fields, d2x, d2y, d2z, scaled_dt, 0, None,
-                    fast, win=24, minmax=False, mode="fwd",
-                )[0])
-
-            if FWD_NARROW is False or not unsliced:
-                phib = fwd_wide(0)
-            else:
-                phib = jax.lax.cond(d2cfl < pb.CFL_MID, fwd_narrow,
-                                    fwd_wide, 0)
-            return jnp.stack(backs[f_lo:]), phib
-
-        if sdf is None:
-            pf, pbk = jax.lax.cond(
-                cfl < pb.CFL_LIMIT,
-                fused2(16),
-                lambda o: jax.lax.cond(cfl < pb.CFL_MID, mixed,
-                                       fused2(24), o),
-                0,
-            )
-        else:
-            # the split modes don't carry the SDF probe/rejection pair;
-            # colliding flows keep the two-branch dispatch
-            pf, pbk = jax.lax.cond(cfl < pb.CFL_LIMIT, fused2(16),
-                                   fused2(24), 0)
-        return pf, pbk, lohi
-
-    def fused(win):
-        def run(_):
-            pf, pbk, lo, hi = pb.bfecc_sample_fused(
-                topo, base, dx, dy, dz, scaled_dt, f_lo, sdf, fast, win=win,
-                minmax=True,
-            )
-            return jnp.stack(pf), jnp.stack(pbk), (jnp.stack(lo), jnp.stack(hi))
-
-        return run
-
-    # the 24-window fused kernel is valid for any clamped displacement, so
-    # the cond is purely a MAC-count optimization for calm flows
-    return jax.lax.cond(cfl < pb.CFL_LIMIT, fused(16), fused(24), 0)
-
-
-def _advect_vmem_wide(
-    topo: Topology,
-    vel: jax.Array,
-    fields: Sequence[jax.Array],
-    scaled_dt: float,
-    sdf: Optional[jax.Array],
-    trace_order: int = 1,
-    fast="strict",
-    fields_are_velocity: bool = False,
-):
-    """BFECC sampling via the chunked VMEM sampler (ops/pallas_interp2):
-    ONE unique-row gather per advection, reused by every sampling pass.
-    ``fast``: dot-precision tier, "strict" | "balanced" | "fast"
-    (bools accepted: True = "fast" — legacy name kept for the public API)."""
-    from hnanosolver_tpu.ops import pallas_interp2 as pi2
-
-    base = [vel[0], vel[1], vel[2]]
-    if not fields_are_velocity:
-        base += list(fields)
-    nb = len(base)
-    tables = pi2.build_tables(topo, base)
-    sdf_tables = pi2.build_tables(topo, [sdf]) if sdf is not None else None
-
-    def vel_at(dx, dy, dz):
-        return pi2.sample_tables(topo, tables, 0, 3, dx, dy, dz, fast)
-
-    dx = _clamp(-vel[0] * scaled_dt)
-    dy = _clamp(-vel[1] * scaled_dt)
-    dz = _clamp(-vel[2] * scaled_dt)
-    if trace_order == 2:  # midpoint
-        mx, my, mz = vel_at(
-            _clamp(-0.5 * vel[0] * scaled_dt),
-            _clamp(-0.5 * vel[1] * scaled_dt),
-            _clamp(-0.5 * vel[2] * scaled_dt),
-        )
-        dx = _clamp(-mx * scaled_dt)
-        dy = _clamp(-my * scaled_dt)
-        dz = _clamp(-mz * scaled_dt)
-    elif trace_order == 3:  # RK3 (Ralston)
-        k1x, k1y, k1z = vel[0], vel[1], vel[2]
-        k2x, k2y, k2z = vel_at(
-            _clamp(-0.5 * k1x * scaled_dt),
-            _clamp(-0.5 * k1y * scaled_dt),
-            _clamp(-0.5 * k1z * scaled_dt),
-        )
-        k3x, k3y, k3z = vel_at(
-            _clamp(-0.75 * k2x * scaled_dt),
-            _clamp(-0.75 * k2y * scaled_dt),
-            _clamp(-0.75 * k2z * scaled_dt),
-        )
-        dx = _clamp(-(2 * k1x + 3 * k2x + 4 * k3x) / 9.0 * scaled_dt)
-        dy = _clamp(-(2 * k1y + 3 * k2y + 4 * k3y) / 9.0 * scaled_dt)
-        dz = _clamp(-(2 * k1z + 3 * k2z + 4 * k3z) / 9.0 * scaled_dt)
-    elif trace_order >= 4:  # classic RK4 (reference rk4_integrate,
-        # /root/reference/src/Cuda/Utils.cuh — shipped but unused there)
-        k1x, k1y, k1z = vel[0], vel[1], vel[2]
-        k2x, k2y, k2z = vel_at(
-            _clamp(-0.5 * k1x * scaled_dt),
-            _clamp(-0.5 * k1y * scaled_dt),
-            _clamp(-0.5 * k1z * scaled_dt),
-        )
-        k3x, k3y, k3z = vel_at(
-            _clamp(-0.5 * k2x * scaled_dt),
-            _clamp(-0.5 * k2y * scaled_dt),
-            _clamp(-0.5 * k2z * scaled_dt),
-        )
-        k4x, k4y, k4z = vel_at(
-            _clamp(-k3x * scaled_dt),
-            _clamp(-k3y * scaled_dt),
-            _clamp(-k3z * scaled_dt),
-        )
-        dx = _clamp(-(k1x + 2 * k2x + 2 * k3x + k4x) / 6.0 * scaled_dt)
-        dy = _clamp(-(k1y + 2 * k2y + 2 * k3y + k4y) / 6.0 * scaled_dt)
-        dz = _clamp(-(k1z + 2 * k2z + 2 * k3z + k4z) / 6.0 * scaled_dt)
-
-    if sdf is not None:
-        d = pi2.sample_tables(topo, sdf_tables, 0, 1, dx, dy, dz)[0]
-        hit = d < 0.0  # backtrace entered the solid (Kernel.cu:141-155)
-        dx = jnp.where(hit, 0.0, dx)
-        dy = jnp.where(hit, 0.0, dy)
-        dz = jnp.where(hit, 0.0, dz)
-
-    back = pi2.sample_tables(topo, tables, 0, nb, dx, dy, dz, fast)
-    vfx, vfy, vfz = back[:3]
-    phis_f = back if fields_are_velocity else back[3:]
-
-    d2x = _clamp(dx + vfx * scaled_dt)
-    d2y = _clamp(dy + vfy * scaled_dt)
-    d2z = _clamp(dz + vfz * scaled_dt)
-    if sdf is not None:
-        d2 = pi2.sample_tables(topo, sdf_tables, 0, 1, d2x, d2y, d2z)[0]
-        hit2 = d2 < 0.0  # retrace entered the solid -> stay at backPos
-        d2x = jnp.where(hit2, dx, d2x)
-        d2y = jnp.where(hit2, dy, d2y)
-        d2z = jnp.where(hit2, dz, d2z)
-    lo = 0 if fields_are_velocity else 3
-    phis_b = pi2.sample_tables(topo, tables, lo, nb, d2x, d2y, d2z, fast)
-    return jnp.stack(phis_f), jnp.stack(phis_b), None
+def chunk_size(capacity: int, chunk: int = DEFAULT_CHUNK) -> int:
+    """Tiles per sampling chunk: the largest divisor of ``capacity`` that is
+    at most ``chunk`` (capacities are multiples of 512 above 2048 tiles, so
+    this stays near ``chunk``; e.g. 768 at capacity 4608)."""
+    c = min(chunk, capacity)
+    while capacity % c:
+        c -= 1
+    return c
 
 
 def _advect_chunked(
@@ -451,24 +121,12 @@ def _advect_chunked(
     sdf: Optional[jax.Array],
     chunk: int,
     trace_order: int = 1,
-    interp: str | None = INTERP,
-    fast="strict",
     fields_are_velocity: bool = False,
 ):
     """Core BFECC: returns (phiF, phiB) stacked [len(fields), T, 512].
     Shares trace positions and interpolation weights across all fields.
     ``fields_are_velocity``: the advected fields ARE the velocity components
     (self-advection), so the back-position pass samples them once, not twice."""
-    if interp is None:
-        interp = _default_interp(topo)
-    if interp == "vmem":
-        if topo.chunk_uniq is None:
-            interp = "pallas"  # no chunk plan on this topology
-        else:
-            return _advect_vmem(
-                topo, vel, fields, scaled_dt, sdf, trace_order, fast,
-                fields_are_velocity,
-            )
 
     def table(full_field, nbr27):
         C = nbr27.shape[0]
@@ -479,32 +137,20 @@ def _advect_chunked(
     def body(args):
         nbr27, vx, vy, vz = args
 
-        if interp == "pallas":
-            from hnanosolver_tpu.ops.pallas_interp import sample_fields_pallas
-        elif interp == "mxu":
-            def sample_many(tables, dx, dy, dz):
-                return trilinear_mxu(tables, dx, dy, dz)
-        else:
-            def sample_many(tables, dx, dy, dz):
-                cs = _corners(dx, dy, dz)
-                return [_sample(t, cs) for t in tables]
+        def sample_many(tables, dx, dy, dz):
+            cs = _corners(dx, dy, dz)
+            return [_sample(t, cs) for t in tables]
 
         if trace_order >= 2:
             # RK backtrace (the reference ships rk3/rk4 integrators in
             # /root/reference/src/Cuda/Utils.cuh even though its pipeline
             # uses the 1st-order trace; trace_order=1 matches the pipeline).
-            if interp == "pallas":
-                def vel_at(dx, dy, dz):
-                    return tuple(
-                        sample_fields_pallas(nbr27, [vel[0], vel[1], vel[2]], dx, dy, dz)
-                    )
-            else:
-                vxt0 = table(vel[0], nbr27)
-                vyt0 = table(vel[1], nbr27)
-                vzt0 = table(vel[2], nbr27)
+            vxt0 = table(vel[0], nbr27)
+            vyt0 = table(vel[1], nbr27)
+            vzt0 = table(vel[2], nbr27)
 
-                def vel_at(dx, dy, dz):
-                    return tuple(sample_many([vxt0, vyt0, vzt0], dx, dy, dz))
+            def vel_at(dx, dy, dz):
+                return tuple(sample_many([vxt0, vyt0, vzt0], dx, dy, dz))
 
             if trace_order == 2:  # midpoint
                 mx, my, mz = vel_at(
@@ -555,23 +201,15 @@ def _advect_chunked(
             dy = _clamp(-vy * scaled_dt)
             dz = _clamp(-vz * scaled_dt)
         if sdf is not None:
-            if interp == "pallas":
-                d = sample_fields_pallas(nbr27, [sdf], dx, dy, dz)[0]
-            else:
-                sdf_t = table(sdf, nbr27)
-                d = sample_many([sdf_t], dx, dy, dz)[0]
+            sdf_t = table(sdf, nbr27)
+            d = sample_many([sdf_t], dx, dy, dz)[0]
             hit = d < 0.0  # backtrace entered the solid -> stay (Kernel.cu:141-155)
             dx = jnp.where(hit, 0.0, dx)
             dy = jnp.where(hit, 0.0, dy)
             dz = jnp.where(hit, 0.0, dz)
-        if interp == "pallas":
-            def sample_many_fields(fs, dx, dy, dz):
-                return sample_fields_pallas(
-                    nbr27, list(fs), dx, dy, dz, fast=fast in (True, "fast")
-                )
-        else:
-            def sample_many_fields(fs, dx, dy, dz):
-                return sample_many([table(f, nbr27) for f in fs], dx, dy, dz)
+        def sample_many_fields(fs, dx, dy, dz):
+            return sample_many([table(f, nbr27) for f in fs], dx, dy, dz)
+
         # one pass at the back position samples velocity AND all fields
         # (shared interpolation weights — the fused-kernel trick); for
         # self-advection the fields ARE the velocity, so sample them once
@@ -589,10 +227,7 @@ def _advect_chunked(
         d2y = _clamp(dy + vfy * scaled_dt)
         d2z = _clamp(dz + vfz * scaled_dt)
         if sdf is not None:
-            if interp == "pallas":
-                d2 = sample_fields_pallas(nbr27, [sdf], d2x, d2y, d2z)[0]
-            else:
-                d2 = sample_many([sdf_t], d2x, d2y, d2z)[0]
+            d2 = sample_many([sdf_t], d2x, d2y, d2z)[0]
             hit2 = d2 < 0.0  # retrace entered the solid -> stay at backPos
             d2x = jnp.where(hit2, dx, d2x)
             d2y = jnp.where(hit2, dy, d2y)
@@ -600,8 +235,10 @@ def _advect_chunked(
         phis_b = sample_many_fields(list(fields), d2x, d2y, d2z)
         return jnp.stack(phis_f), jnp.stack(phis_b)
 
-    nbr_chunks = _chunk_rows(topo, chunk)
-    K, C, _ = nbr_chunks.shape
+    T = topo.capacity
+    C = chunk_size(T, chunk)
+    K = T // C
+    nbr_chunks = topo.nbr.reshape(K, C, 27)
     vx = vel[0].reshape(K, C, TILE)
     vy = vel[1].reshape(K, C, TILE)
     vz = vel[2].reshape(K, C, TILE)
@@ -610,27 +247,23 @@ def _advect_chunked(
     F = len(fields)
     pf = jnp.moveaxis(pf, 0, 1).reshape(F, K * C, TILE)
     pb = jnp.moveaxis(pb, 0, 1).reshape(F, K * C, TILE)
-    return pf, pb, None
+    return pf, pb
 
 
-# above this many bytes for the stacked [6, F, T, 512] face views, the
-# clamp switches to the one-direction-at-a-time form (1024^3-class domains)
+# Transient-memory governors. Both are byte caps on XLA temporaries that
+# switch to a lower-peak, bit-identical form above them; neither engages
+# below 1024^3-class domains. Their values predate any measurement on this
+# device and are to be re-derived from memory_stats() at the 1024^3 cell.
+#
+# Above this many bytes for the stacked [6, F, T, 512] face views, the
+# clamp switches to the one-direction-at-a-time form.
 CLAMP_VIEWS_BUDGET = 2 * 1024**3
 
-# per-batch budget for the ~4 field-sized BFECC transients each advected
-# scalar keeps live until its clamp (see advect_scalars_fused); sized so
-# a 1024^3-class domain (~2 GB per field-transient set) runs one scalar
-# per batch while bench-class domains stay single-batch
+# Per-batch budget for the ~4 field-sized BFECC transients each advected
+# scalar keeps live until its clamp (see advect_scalars_fused): a
+# 1024^3-class domain (~2 GB per field-transient set) runs one scalar per
+# batch, bench-class domains stay single-batch.
 ADVECT_TRANSIENT_BUDGET = 3 * 1024**3
-
-
-def _tail_kernel_ok(topo) -> bool:
-    """Use the fused Pallas BFECC tail (ops/pallas_tail.py) — real TPU only
-    (the XLA forms are faster than interpret mode elsewhere; tests compare
-    both paths bit-exactly with interpret=True explicitly)."""
-    from hnanosolver_tpu.ops import pallas_tail as pt
-
-    return bool(pt.TAIL_KERNEL) and pt._on_tpu()
 
 
 def _minmax_clamp_multi(topo, phi0s, phi_fs, corrs):
@@ -658,8 +291,7 @@ def _bfecc_limit_blocks(topo, phi0s, pfs, pbs):
     with the precomputed-bounds path (min/max are associative; the clip
     reads identical bounds). This is what lets radius-256 (269k tiles)
     fit: the precompute held 2 field-sized bounds arrays across the whole
-    sampling pass and the clamp added corr + lo + hi full-size temps
-    (NOTES r3 fact 26: the last ~430 MB of the 1024^3 envelope)."""
+    sampling pass and the clamp added corr + lo + hi full-size temps."""
     F, T, _ = phi0s.shape
     want = max(1, -(-(F * T * TILE * 4) // sh.MINMAX_VIEWS_BUDGET))
     nblk = 1
@@ -686,7 +318,7 @@ def _bfecc_limit_blocks(topo, phi0s, pfs, pbs):
             mins = view if mins is None else jnp.minimum(mins, view)
             maxs = view if maxs is None else jnp.maximum(maxs, view)
             # serialize the six gathers (identity, bit-exact) so a block
-            # never holds them all at once (NOTES r3 fact 24)
+            # never holds them all at once
             mins, nb = jax.lax.optimization_barrier((mins, nb))
         corr = pf + 0.5 * (ph - pb)
         lo = jnp.minimum(jnp.minimum(ph, mins), pf)
@@ -697,26 +329,13 @@ def _bfecc_limit_blocks(topo, phi0s, pfs, pbs):
     return jax.lax.fori_loop(0, nblk, body, jnp.zeros_like(phi0s))
 
 
-def _bfecc_limit(topo, phi0s, pf, pb, lohi):
+def _bfecc_limit(topo, phi0s, pf, pb):
     """The BFECC correction + limiter for F stacked fields: corrected =
     clip(pf + 0.5 (phi0 - pb), bounds) with bounds = min/max over {phi0,
-    6 face neighbors, pf} (Kernel.cu:249-261). ``lohi`` carries kernel- or
-    pre-computed {self,faces} bounds when available; None selects the
-    fused block form at scale (no field-sized transients) or the one-shot
-    XLA form below it."""
-    if lohi is not None:
-        corrs = pf + 0.5 * (phi0s - pb)
-        return jnp.clip(corrs, jnp.minimum(lohi[0], pf),
-                        jnp.maximum(lohi[1], pf))
+    6 face neighbors, pf} (Kernel.cu:249-261). At scale the fused block
+    form runs (no field-sized transients), below it the one-shot form."""
     if phi0s.size * 4 * 2 > sh.MINMAX_VIEWS_BUDGET:
         return _bfecc_limit_blocks(topo, phi0s, pf, pb)
-    if _tail_kernel_ok(topo):
-        # fused tail kernel: packed-plane gather + in-VMEM views/bounds/
-        # correction/clip — one launch, fields read once (bit-identical
-        # to the XLA forms below; see ops/pallas_tail.py)
-        from hnanosolver_tpu.ops import pallas_tail as pt
-
-        return pt.bfecc_tail_fused(topo, phi0s, pf, pb)
     corrs = pf + 0.5 * (phi0s - pb)
     return _minmax_clamp_multi(topo, phi0s, pf, corrs)
 
@@ -730,7 +349,6 @@ def advect_scalars_fused(
     sdf: Optional[jax.Array] = None,
     chunk: int = DEFAULT_CHUNK,
     trace_order: int = 1,
-    fast="strict",
 ) -> Dict[str, jax.Array]:
     """BFECC-advect every scalar field by ``vel`` [3,T,512], sharing trace
     corners across fields (the fused advect_scalars kernel)."""
@@ -750,12 +368,11 @@ def advect_scalars_fused(
     src_vel = vel
     for i in range(0, len(fields), nbatch):
         sub = fields[i:i + nbatch]
-        pf, pb, lohi = _advect_chunked(
-            topo, src_vel, sub, dt * inv_dx, sdf, chunk, trace_order, INTERP,
-            fast
+        pf, pb = _advect_chunked(
+            topo, src_vel, sub, dt * inv_dx, sdf, chunk, trace_order
         )
         phi0s = jnp.stack(sub)
-        clamped = _bfecc_limit(topo, phi0s, pf, pb, lohi)
+        clamped = _bfecc_limit(topo, phi0s, pf, pb)
         outs.extend(clamped[j] for j in range(len(sub)))
         if i + nbatch < len(fields):
             # batches are data-independent — barrier-chain them (identity)
@@ -790,7 +407,6 @@ def advect_velocity(
     sdf: Optional[jax.Array] = None,
     chunk: int = DEFAULT_CHUNK,
     trace_order: int = 1,
-    fast="strict",
 ) -> jax.Array:
     """BFECC self-advection of velocity with per-component clamping and the
     reference's near-boundary no-slip tail (Kernel.cu:354-453)."""
@@ -801,16 +417,16 @@ def advect_velocity(
         # per pass — as a scalars-mode field, since the in-kernel re-trace
         # still needs all three components sampled at the back position —
         # so only one component's phiF/phiB/limiter transients are live.
-        # Sampling math is identical (the component's dot rows use the same
-        # operands either way); costs two extra back-pass fields per call.
+        # Sampling math is identical (same corners, same weights); costs
+        # two extra back-pass fields per call.
         comps = []
         src_vel = vel
         for j in range(3):
-            pf, pb, lohi = _advect_chunked(
+            pf, pb = _advect_chunked(
                 topo, src_vel, [src_vel[j]], dt * inv_dx, sdf, chunk,
-                trace_order, INTERP, fast,
+                trace_order,
             )
-            o = _bfecc_limit(topo, src_vel[j][None], pf, pb, lohi)
+            o = _bfecc_limit(topo, src_vel[j][None], pf, pb)
             comp = o[0]
             if j < 2:  # barrier-chain independent component passes
                 comp, src_vel = jax.lax.optimization_barrier((comp, src_vel))
@@ -818,11 +434,11 @@ def advect_velocity(
         out = jnp.stack(comps)
     else:
         fields = [vel[0], vel[1], vel[2]]
-        pf, pb, lohi = _advect_chunked(
-            topo, vel, fields, dt * inv_dx, sdf, chunk, trace_order, INTERP,
-            fast, fields_are_velocity=True,
+        pf, pb = _advect_chunked(
+            topo, vel, fields, dt * inv_dx, sdf, chunk, trace_order,
+            fields_are_velocity=True,
         )
-        out = _bfecc_limit(topo, vel, pf, pb, lohi)
+        out = _bfecc_limit(topo, vel, pf, pb)
 
     if sdf is not None:
         # advect_vector's tail: gate at 0.1 but blend with 1 - sdf/1.5

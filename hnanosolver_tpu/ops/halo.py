@@ -1,15 +1,14 @@
 """Halo assembly: gather 1-voxel shells from the 26 neighbor tiles.
 
-The TPU-native equivalent of the reference's shared-memory 10^3 halo load
+The flat-layout equivalent of the reference's shared-memory 10^3 halo load
 (`/root/reference/src/Cuda/Kernel.cu:539-548,714-722`): instead of per-thread
 tree probes into NanoVDB, each offset direction performs ONE vectorized
 gather of pre-sliced neighbor planes/edges/corners via the precomputed
 ``Topology.nbr`` table. Missing neighbors resolve to tile 0 (the null tile),
 whose values are identically zero — background semantics for free.
 
-All gathers are row-gathers over the leading (tile) axis, which XLA lowers
-to efficient dynamic-gather loops on TPU; read volume is proportional to the
-shell actually needed (faces 64 voxels, edges 8, corners 1), not whole tiles.
+All gathers are row-gathers over the leading (tile) axis; read volume is
+proportional to the shell actually needed (faces 64 voxels, edges 8, corners 1), not whole tiles.
 """
 
 from __future__ import annotations
@@ -40,8 +39,7 @@ def gather_halo(
     """[T, 8, 8, 8, *ch] -> [T, 8+2r, 8+2r, 8+2r, *ch] with an r-voxel halo
     from the neighbor tiles (r <= 8: everything needed lives in the
     27-neighborhood). All data movement is contiguous row gathers over the
-    tile axis — the fast path on TPU; per-element gathers are avoided
-    entirely (they lower catastrophically, ~16M elem/s measured).
+    tile axis; no per-element gathers.
 
     ``faces_only`` gathers just the 6 face neighbors — enough for every
     7-point stencil (pressure Laplacian, divergence, gradient, curl), at a
@@ -74,7 +72,7 @@ def face_shift_views(topo: Topology, field: jax.Array):
     padded buffer: each view = concat(in-tile slice, gathered neighbor face
     plane). XLA fuses the concats into the consuming elementwise op, so a
     7-point stencil costs 6 small row-gathers (~1/4 tile each) plus one fused
-    loop — the leanest formulation measured on TPU.
+    loop.
 
     Returns a dict {(dx,dy,dz): view} with views shaped like ``field``.
     """

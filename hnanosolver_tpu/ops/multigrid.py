@@ -4,7 +4,7 @@ The reference *intended* a multigrid V-cycle — kernels are declared
 (`/root/reference/src/Cuda/Kernels.cuh:40-49`), one restriction is written
 (`Kernel.cu:625-658`), and the whole host driver exists as a comment
 (`HNanoSolver.cu:399-506`) — but none of it runs (SURVEY §7.6). This module
-implements it for real, TPU-style:
+implements it for real, on the flat tile layout:
 
 - Level k+1 tiles are the unique ``tile_coord >> 1`` of level k — each
   coarse 8^3 tile covers a 2x2x2 block of fine tiles, so restriction /
@@ -77,13 +77,10 @@ def _restrict_mask_np(children: np.ndarray, fine_mask: np.ndarray,
     children is — the coarse domain OVER-covers the fine one by up to
     2^k - 1 voxels at depth k, so coarse corrections of the global mode
     overshoot (a Dirichlet problem on a larger domain has a larger
-    solution) and deep V-cycles AMPLIFY instead of damping (probe r4/103:
-    depth-5 ratio 0.567 @2 cycles -> 0.900 @4). "all" (the default)
-    requires every child in-domain: the coarse domain UNDER-covers,
-    corrections undershoot, and the cycle can only damp. Measured
-    (tools/probe_mgdeep2.py, tile-sphere, 6 cycles): any diverges at
-    depth 5 (4.07 -> 6.93); all converges monotonically and deeper is
-    strictly better (depth 5 reaches 0.075 vs depth 3's 0.18)."""
+    solution) and deep V-cycles amplify instead of damping. "all" (the
+    default) requires every child in-domain: the coarse domain
+    under-covers, corrections undershoot, and the cycle can only damp —
+    deeper is then strictly better on the tile sphere (test_multigrid)."""
     Tf = fine_mask.shape[0]
     red = np.max if mode == "any" else np.min
     m = red(fine_mask.reshape(Tf, 4, 2, 4, 2, 4, 2), axis=(2, 4, 6))
@@ -149,11 +146,10 @@ def hierarchy_for(topo: Topology, params) -> tuple:
 # ---------------------------------------------------------------------------
 # Transfer operators.
 #
-# All index juggling is precomputed as static LANE permutations so every
-# on-device array stays [T, 512]-shaped (or [T, small]) — reshapes through
-# [.., 8, 8, 8] / [.., 4, 4, 4] shapes padded their minor dims to (8, 128)
-# tiles on TPU, a 16-32x blowup that OOMed the 1024^3 solve (probe r3/009:
-# a 35 GB copy for a 2.2 GB logical array).
+# All index juggling is precomputed as static in-tile column permutations
+# so every on-device array stays [T, 512]-shaped (or [T, small]): no
+# [.., 8, 8, 8] / [.., 4, 4, 4] intermediates whose small minor dims a
+# backend may pad.
 # ---------------------------------------------------------------------------
 
 
@@ -203,7 +199,9 @@ def restrict(level: MGLevel, fine: jax.Array) -> jax.Array:
 
 # Above this many bytes for the [Tc*8, 512] octant-expanded coarse array,
 # prolongation falls back to the 8-sequential-gather form (lower peak, more
-# passes) — the merged form holds source + expansion + output at once.
+# passes) — the merged form holds source + expansion + output at once. A
+# memory cap that engages only at 1024^3-class domains; its value predates
+# any measurement on this device (re-derive at the 1024^3 cell).
 PROLONG_MERGE_BUDGET = 1 * 1024**3
 
 
@@ -269,10 +267,9 @@ def prolong_trilinear(level: MGLevel, coarse: jax.Array) -> jax.Array:
     # stacking order: axis-k parity lands in bit k => index q = pz*4+py*2+px
     Tc = coarse.shape[0]
     stacked = jnp.moveaxis(fields, 0, 1).reshape(Tc, 8 * 512)
-    # lane-select per octant on the COARSE side, THEN row-gather to fine:
-    # gathering [Tf, 4096] first was a 4.1 GB temp at 1024^3 (the largest
-    # allocation in the probe r4/004 OOM); this order is the same two takes
-    # commuted, peaking at [Tc, 4096] + 2x [Tf, 512] instead.
+    # column-select per octant on the COARSE side, THEN row-gather to fine:
+    # gathering [Tf, 4096] first is a 4.1 GB temp at 1024^3; this order is
+    # the same two takes commuted, peaking at [Tc, 4096] + 2x [Tf, 512].
     if Tc * 8 * 512 * 4 <= PROLONG_MERGE_BUDGET:
         # merged form: ONE lane permutation expands the parity stack to all
         # 8 octant views [Tc*8, 512], ONE row gather (parent*8 + octant)
@@ -304,7 +301,6 @@ def v_cycle(
     mask: jax.Array | None = None,
     refresh=None,
     coarse_reduce=None,
-    smooth_lag: bool | str = "pair",
 ) -> jax.Array:
     """One V-cycle of the reference's commented driver (HNanoSolver.cu:399-506),
     recursing down ``hierarchy``. ``mask`` is THIS level's in-domain voxel
@@ -315,42 +311,15 @@ def v_cycle(
     each device restricts its OWNED fine tiles into the global coarse table
     and ``coarse_reduce`` (a psum over the mesh axis) combines them; the
     coarse solve then runs identically on every device."""
-    # Smoothing halo granularity (``smooth_lag``, TPU pallas paths only):
-    #   "pair" (default): the lagged G=32 kernel at one-PAIR granularity —
-    #       one fused gather + one launch per red+black pair; the black
-    #       half-sweep sees a halo stale by one half-sweep. ~2x cheaper
-    #       than textbook per-color smoothing at ~equal MG convergence.
-    #   True: halo gathered once per n_pre-pair smoothing call (lag-2 at
-    #       the defaults) — cheapest, but measured 1.6-1.8x WORSE V-cycle
-    #       residual at 1024^3 (probe r4/108: ratio 0.20 -> 0.36 at 4
-    #       cycles): stale boundaries re-inject error every cycle.
-    #   False: textbook per-color halos (the probe-108 reference).
-    if refresh is not None or not smooth_lag:
-        lag = {}
-    elif smooth_lag == "pair":
-        lag = {"pair_blocks": True}
-    else:
-        lag = {"halo_lag": n_pre}
     if not hierarchy:
-        # The coarsest call is a SOLVE, not a smoother — halos must stay
-        # fresh (lag-50 measured 3.4x worse residual at bench scale, NOTES
-        # fact 39): pair granularity, or lag-4 in the legacy True mode.
-        # Usually moot: a deep-enough coarsest is <= MAX_FUSED_ROWS and
-        # takes the textbook whole-solve kernel regardless.
-        if refresh is None and smooth_lag == "pair":
-            ck = {"pair_blocks": True}
-        elif (refresh is None and smooth_lag is True
-              and n_coarsest % 4 == 0):
-            ck = {"halo_lag": 4}
-        else:
-            ck = {}
+        # the coarsest call is a solve, not a smoother
         return prs.solve_pressure(
             topo, div, n_coarsest, dx, omega, p0=p, mask=mask,
-            refresh=refresh, **ck,
+            refresh=refresh,
         )
     lvl = hierarchy[0]
     p = prs.solve_pressure(
-        topo, div, n_pre, dx, omega, p0=p, mask=mask, refresh=refresh, **lag
+        topo, div, n_pre, dx, omega, p0=p, mask=mask, refresh=refresh
     )
     if refresh is not None:
         p = refresh(p)
@@ -376,18 +345,13 @@ def v_cycle(
         n_coarsest,
         prolongation,
         lvl.mask,
-        smooth_lag=smooth_lag,
     )
     if prolongation == "trilinear":
         p = p + prolong_trilinear(lvl, ec)
     else:
         p = p + prolong(lvl, ec, topo.capacity)
-    post_lag = dict(lag)
-    if post_lag.get("halo_lag") is not None:
-        post_lag["halo_lag"] = n_post
     return prs.solve_pressure(
-        topo, div, n_post, dx, omega, p0=p, mask=mask, refresh=refresh,
-        **post_lag,
+        topo, div, n_post, dx, omega, p0=p, mask=mask, refresh=refresh
     )
 
 
@@ -401,7 +365,6 @@ def fmg_initial_guess(
     n_post: int = 2,
     n_coarsest: int = 24,
     prolongation: str = "trilinear",
-    smooth_lag: bool | str = "pair",
     refresh=None,
     coarse_reduce=None,
 ) -> jax.Array:
@@ -447,7 +410,6 @@ def fmg_initial_guess(
         p = v_cycle(
             t_k, hierarchy[k:], divs[k], p, dx * (2.0 ** k), omega,
             n_pre, n_post, n_coarsest, prolongation, m_k,
-            smooth_lag=smooth_lag,
             refresh=refresh if k == 0 else None,
             coarse_reduce=coarse_reduce if k == 0 else None,
         )
@@ -487,7 +449,6 @@ def solve_pressure_mg(
             n_pre=kw.get("n_pre", 2), n_post=kw.get("n_post", 2),
             n_coarsest=kw.get("n_coarsest", 24),
             prolongation=kw.get("prolongation", "trilinear"),
-            smooth_lag=kw.get("smooth_lag", "pair"),
             refresh=refresh, coarse_reduce=coarse_reduce,
         )
     else:

@@ -12,9 +12,10 @@ cross-leaf ordering is chaotic; here each color sweep refreshes the halo
 first, giving textbook RBGS — convergence is compared by residual, not by
 matching the reference's nondeterministic intermediate states (SURVEY §7.4).
 
-Layout: fields are flat [T,512] (core/layout.py) so one sweep is six
-roll+select face views (ops/shifts.py) and a fused FMA pass — measured at
-the RPC noise floor on v5e where the block-layout version took 17 ms.
+Layout: fields are flat [T,512] (core/layout.py), so one sweep is six
+face views (ops/shifts.py) and one fused update pass. On a GPU the
+single-device solve runs each colour sweep as one Pallas kernel instead
+(ops/rbgs_sweep.py); both give the same update in the same summation order.
 
 Out-of-domain pressure reads are background 0 (Dirichlet p=0 on the sparse
 boundary), identical to the reference's index-sampler convention.
@@ -30,17 +31,17 @@ from hnanosolver_tpu.core.topology import Topology
 from hnanosolver_tpu.ops.shifts import neighbor_sum
 
 
+def sweep_impl(platform: str | None = None) -> str:
+    """Colour-sweep implementation for ``platform`` (default: JAX's default
+    backend, read at trace time): "triton" (ops/rbgs_sweep.py) on a GPU,
+    where it beat the XLA sweep end to end, "xla" elsewhere."""
+    platform = platform or jax.default_backend()
+    return "triton" if platform == "gpu" else "xla"
+
+
 def _color_sweep(topo, p, div, dx2, omega, color_mask):
     pgs = (neighbor_sum(topo, p) - div * dx2) * (1.0 / 6.0)
     return jnp.where(color_mask, p + omega * (pgs - p), p)
-
-
-def _on_tpu() -> bool:
-    try:
-        dev = jax.devices()[0]
-        return dev.platform == "tpu" or "TPU" in str(dev)
-    except Exception:  # pragma: no cover
-        return False
 
 
 def solve_pressure(
@@ -50,63 +51,21 @@ def solve_pressure(
     dx: float,
     omega: float,
     p0: jax.Array | None = None,
-    backend: str | None = None,
     refresh=None,
     mask: jax.Array | None = None,
-    halo_lag: int = 1,
-    pair_blocks: bool = False,
 ) -> jax.Array:
     """Run ``iterations`` red+black SOR sweeps from p0 (zeros by default).
-    div, p: [T,512]. ``backend``: "pallas" (fused sweep kernel; auto on
-    TPU), "xla" (roll+select formulation; auto elsewhere). ``refresh``:
-    ghost-row exchange hook applied to p before every color sweep (identity
-    on one chip; ppermute under shard_map — see parallel/slab.py).
-    ``mask``: in-domain voxel mask [T,512]; cells outside stay exactly 0
-    (Dirichlet) — used by multigrid coarse levels whose tiles only partially
-    cover the fine domain."""
-    if backend is None:
-        backend = "pallas" if _on_tpu() else "xla"
-    if backend == "pallas":
-        from hnanosolver_tpu.ops.pallas_pressure import (
-            MAX_FUSED_ROWS,
-            solve_pressure_fused,
-            solve_pressure_pallas,
-        )
+    div, p: [T,512]. ``refresh``: ghost-row exchange hook applied to p
+    before every color sweep (identity on one device; ppermute under
+    shard_map — see parallel/slab.py). ``mask``: in-domain voxel mask
+    [T,512]; cells outside stay exactly 0 (Dirichlet) — used by multigrid
+    coarse levels whose tiles only partially cover the fine domain."""
+    # the kernel serves the single-device solve; a ghost exchange (sharded
+    # step) or a coarse-level mask keeps the XLA sweeps
+    if refresh is None and mask is None and sweep_impl() == "triton":
+        from hnanosolver_tpu.ops import rbgs_sweep
 
-        if refresh is None and div.shape[0] <= MAX_FUSED_ROWS:
-            # whole solve in ONE kernel, p resident in VMEM (no per-sweep
-            # gathers, no HBM round trips; halo is always fresh — textbook)
-            return solve_pressure_fused(
-                topo, div, iterations, dx, omega, p0=p0,
-                interpret=not _on_tpu(), mask=mask,
-            )
-        if refresh is None and (halo_lag > 1 or pair_blocks):
-            # pair_blocks: the lagged kernel at ONE-PAIR granularity — the
-            # halo refreshes per red+black pair (the black half-sweep sees
-            # a halo stale by one half-sweep; halo_lag=1 without it keeps
-            # the public textbook per-color semantics). ~2x cheaper than
-            # per-color (one fused gather + one launch per pair) — the MG
-            # smoothing mode (ops/multigrid.v_cycle smooth_lag="pair").
-            from hnanosolver_tpu.ops.pallas_pressure import (
-                solve_pressure_lagged,
-            )
-
-            blocks = (iterations // halo_lag) * halo_lag
-            p = solve_pressure_lagged(
-                topo, div, blocks, dx, omega, halo_lag, p0=p0,
-                interpret=not _on_tpu(), mask=mask,
-            ) if blocks else (jnp.zeros_like(div) if p0 is None else p0)
-            rem = iterations - blocks
-            if not rem:
-                return p
-            return solve_pressure_pallas(
-                topo, div, rem, dx, omega, p0=p,
-                interpret=not _on_tpu(), mask=mask,
-            )
-        return solve_pressure_pallas(
-            topo, div, iterations, dx, omega, p0=p0,
-            interpret=not _on_tpu(), refresh=refresh, mask=mask,
-        )
+        return rbgs_sweep.solve(topo, div, iterations, dx, omega, p0=p0)
     rf = refresh or (lambda f: f)
     dx2 = dx * dx
     red = parity_flat(topo) == 0
@@ -129,14 +88,6 @@ def solve_pressure(
 def residual(topo: Topology, p: jax.Array, div: jax.Array, dx: float) -> jax.Array:
     """Pointwise residual r = div - L(p) of the discrete Poisson problem
     L(p) = (sum nbrs - 6 p) / dx^2 (the system the GS update solves)."""
-    from hnanosolver_tpu.ops import pallas_stencil as pst
-
-    if pst.RESID_KERNEL and pst._on_tpu():
-        # fused packed-plane kernel (on-chip: bitwise at pow2 dx, <= 2 ulp
-        # otherwise — division lowering; probe 114). Transients smaller
-        # than the XLA form at every size — safe even at 1024^3 where the
-        # XLA form must barrier-chain its gathers.
-        return pst.residual_fused(topo, p, div, dx)
     lap = (neighbor_sum(topo, p) - 6.0 * p) / (dx * dx)
     return div - lap
 

@@ -92,15 +92,13 @@ def sample_trilinear(topo: Topology, field: jax.Array, pos) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Local (halo-block) samplers — the TPU hot path.
+# Local (halo-block) samplers.
 #
 # The global samplers above go through a sorted-key binary search plus flat
-# element gathers; both lower to per-element gather loops on TPU (~16M
-# elements/s measured — catastrophic). The local samplers instead assemble an
-# r-voxel halo block per tile with contiguous row gathers (ops/halo.py) and
-# read interpolation corners with BATCHED in-row gathers
-# (``jnp.take_along_axis`` over the flattened per-tile block), which the TPU
-# lowers efficiently. The price: sample displacements are clamped to the halo
+# element gathers per corner. The local samplers instead assemble an r-voxel
+# halo block per tile with contiguous row gathers (ops/halo.py) and read
+# interpolation corners with batched in-row gathers
+# (``jnp.take_along_axis`` over the flattened per-tile block). The price: sample displacements are clamped to the halo
 # radius (a CFL-style clamp the reference does not apply — documented
 # deviation; radius is configurable per op).
 # ---------------------------------------------------------------------------

@@ -1,15 +1,14 @@
 """Flat-layout neighbor access: the stencil engine every hot op builds on.
 
-Fields are ``[T, 512]`` (core/layout.py). Three access patterns, all built
-from measured-fast TPU primitives (lane rolls, contiguous row gathers,
-batched in-row gathers):
+Fields are ``[T, 512]`` (core/layout.py). Three access patterns, built from
+rolls along the row, contiguous row gathers and batched in-row gathers:
 
 - :func:`shifted_views` — the six +-1 face-shifted views: lane roll for the
   in-tile part, one full-row neighbor gather + roll + masked select for the
   boundary plane. This is the 7-point-stencil workhorse (pressure sweeps,
   divergence, gradients, curl, clamps).
 - :func:`neighbor_table` — the 27-neighborhood as one ``[T, 27*512]`` array
-  (one contiguous row gather); 13824 = 108x128 lanes, perfectly tiled.
+  (one contiguous row gather).
 - :func:`offset_view` / :func:`gather_table` — reads at arbitrary integer
   offsets or per-voxel dynamic positions within the 27-neighborhood, as
   batched in-row gathers from the neighbor table.
@@ -61,21 +60,23 @@ def shifted_views(topo: Topology, f: jax.Array, dirs=FACE_DIRS):
 
 
 # above this many bytes of [6, T, 512] stacked views, neighbor_sum
-# accumulates one direction at a time (1024^3-class domains)
+# accumulates one direction at a time. A memory cap that engages only at
+# 1024^3-class domains; its value predates any measurement on this device
+# (re-derive from memory_stats() at the 1024^3 cell).
 NBRSUM_VIEWS_BUDGET = 2 * 1024**3
 
 
 def neighbor_sum(topo: Topology, f: jax.Array) -> jax.Array:
     """Sum of the six face neighbors (7-point stencil helper). One row
     gather for all six directions; the left-associated add order matches
-    the old per-direction formulation bit-exactly (tests compare the XLA
-    and Pallas pressure paths at 0 ulp). At-scale domains accumulate
+    the per-direction formulation and the Pallas sweep kernel
+    (ops/rbgs_sweep.py) bit-exactly. At-scale domains accumulate
     per direction (same order, bit-exact) to cap the transient."""
     if 6 * f.size * 4 > NBRSUM_VIEWS_BUDGET:
         # The six gathers are data-independent, so without a barrier XLA's
         # scheduler runs them all before the adds and the whole [6,T,512]
-        # transient materializes anyway (seen in the 1024^3 OOM, probe
-        # r4/005). optimization_barrier is an identity that threads ``f``
+        # transient materializes anyway (the 1024^3 out-of-memory case).
+        # optimization_barrier is an identity that threads ``f``
         # through each accumulation, forcing gather k+1 after add k:
         # peak = acc + one view instead of six views.
         acc = None
@@ -92,8 +93,9 @@ def neighbor_sum(topo: Topology, f: jax.Array) -> jax.Array:
 # Transient budget for face_minmax_multi: above this, the bounds run in
 # sequential ROW BLOCKS (a fori_loop writing into preallocated outputs) so
 # only block-sized view/gather temps are live. At 1024^3 even single-field
-# [1, T, 512] view temps are ~0.5 GB each and several co-scheduled copies
-# blew the 430 MB headroom of the radius-248 envelope (probe r4/051).
+# [1, T, 512] view temps are ~0.5 GB each. A memory cap that engages only
+# at 1024^3-class domains; its value predates any measurement on this
+# device (re-derive from memory_stats() at the 1024^3 cell).
 MINMAX_VIEWS_BUDGET = 256 * 1024 * 1024
 
 
@@ -101,7 +103,7 @@ def _plane_maps(F: int):
     """Static lane maps for the face-plane-packed bounds gather: a face
     view consumes only the 64-lane plane of each neighbor row that touches
     the boundary, so gather THAT plane instead of the full row (8x fewer
-    gathered bytes — probe r4/065). Per direction: (boundary mask [512]
+    gathered bytes). Per direction: (boundary mask [512]
     bool, plane columns [F*64] into packed fields, expansion index [512]
     mapping boundary lanes to their plane slot)."""
     maps = []
@@ -115,8 +117,8 @@ def _plane_maps(F: int):
         exp_idx[bl] = np.arange(64)
         # NUMPY, not jnp: jnp.asarray of host data inside a trace yields a
         # TRACER on this JAX version, so a map first built inside one jit
-        # poisons every later consumer (NOTES r3 fact 34's sibling). numpy
-        # constants stay constants everywhere.
+        # poisons every later consumer. numpy constants stay constants
+        # everywhere.
         maps.append((mnp, int(s_in), pcols.astype(np.int32),
                      exp_idx.astype(np.int32)))
     return maps
@@ -129,7 +131,7 @@ def face_minmax_multi(topo: Topology, fields: jax.Array):
     part is a lane roll of the fields themselves). Above
     MINMAX_VIEWS_BUDGET the bounds run in sequential row blocks
     (barrier-chained) so only block-sized temps are live — at 1024^3 even
-    single-field [1, T, 512] view temps are ~0.5 GB (probe r4/051)."""
+    single-field [1, T, 512] view temps are ~0.5 GB."""
     F, T, _ = fields.shape
     nblk = 1
     if F * T * TILE * 4 > MINMAX_VIEWS_BUDGET:
@@ -145,7 +147,7 @@ def face_minmax_multi(topo: Topology, fields: jax.Array):
 
     if nblk <= 1:
         # ONE fused lane-extraction pass for all six directions' planes;
-        # gathers then move only the used 64 lanes per row (probe r4/065)
+        # gathers then move only the used 64 lanes per row
         allcols = jnp.concatenate([m[2] for m in maps])
         P = jnp.take(packed, allcols, axis=1)  # [T, 6*F*64]
         mins = maxs = None
@@ -174,8 +176,8 @@ def face_minmax_multi(topo: Topology, fields: jax.Array):
         return mins, maxs
 
     # At-scale block form: NO plane-packed resident (P is ~6/8 of the
-    # field bytes and put the 1024^3 envelope back over HBM — probe
-    # r4/072); gather full rows per block, barrier-chained.
+    # field bytes, too much at 1024^3); gather full rows per block,
+    # barrier-chained.
     B = T // nblk
 
     def block(fields_b, nbr_b):
@@ -189,7 +191,7 @@ def face_minmax_multi(topo: Topology, fields: jax.Array):
             mins = view if mins is None else jnp.minimum(mins, view)
             maxs = view if maxs is None else jnp.maximum(maxs, view)
             # serialize the six gathers (identity, bit-exact) so a block
-            # never holds them all at once (NOTES fact 24)
+            # never holds them all at once
             mins, nbr_b = jax.lax.optimization_barrier((mins, nbr_b))
         return mins, maxs
 

@@ -11,7 +11,7 @@ SURVEY §7.5):
 - vorticityConfinement:    `/root/reference/src/Cuda/Kernel.cu:970-1025`
   (+ computeVorticityMag,  `/root/reference/src/Cuda/Utils.cuh:226-243`)
 
-All neighbor access goes through ops/shifts.py (lane rolls + row gathers);
+All neighbor access goes through ops/shifts.py (in-tile rolls + row gathers);
 out-of-domain reads are exact background 0 via the null tile.
 """
 
@@ -28,14 +28,6 @@ _AXIS_OFFS = (((1, 0, 0), (-1, 0, 0)), ((0, 1, 0), (0, -1, 0)),
               ((0, 0, 1), (0, 0, -1)))
 
 
-def _stencil_kernel_ok() -> bool:
-    """Fused Pallas stencil kernels (ops/pallas_stencil.py) — real TPU only;
-    the XLA forms stay the CPU/test oracle (bit-identical, tested)."""
-    from hnanosolver_tpu.ops import pallas_stencil as ps
-
-    return bool(ps.STENCIL_KERNEL) and ps._on_tpu()
-
-
 def divergence(topo: Topology, vel: jax.Array, inv_dx: float) -> jax.Array:
     """div(u) at cell centers: the reference averages face values
     0.5*(u_c + u_nbr) on both sides and differences them (`Kernel.cu:511-518`),
@@ -46,13 +38,6 @@ def divergence(topo: Topology, vel: jax.Array, inv_dx: float) -> jax.Array:
     six view gathers concurrently — see shifts.neighbor_sum."""
     from hnanosolver_tpu.ops.shifts import NBRSUM_VIEWS_BUDGET
 
-    if _stencil_kernel_ok():
-        # checked BEFORE the at-scale barrier-chain branch: the fused
-        # kernel's only transient is the [6,T,64] packed-plane gather —
-        # smaller than even ONE of the chain's full shifted views
-        from hnanosolver_tpu.ops import pallas_stencil as ps
-
-        return ps.divergence_fused(topo, vel, inv_dx)
     if 2 * vel.size * 4 > NBRSUM_VIEWS_BUDGET:
         acc = None
         src = vel
@@ -92,11 +77,6 @@ def subtract_pressure_gradient(
     (bit-identical) instead of materializing all six p-views at once."""
     from hnanosolver_tpu.ops.shifts import NBRSUM_VIEWS_BUDGET
 
-    if _stencil_kernel_ok():
-        # before the at-scale branch — see divergence
-        from hnanosolver_tpu.ops import pallas_stencil as ps
-
-        return ps.subtract_gradient_fused(topo, vel, p, inv_dx)
     if 2 * vel.size * 4 > NBRSUM_VIEWS_BUDGET:
         comps = []
         src = p

@@ -1,8 +1,8 @@
 """Box (2-D/3-D) domain decomposition: the pod-scale generalization of the
 x-slab partition (``parallel/slab.py``).
 
-A 1-D x-slab cut needs at least one x tile-layer per device, so a 256-chip
-pod or a squat/flat domain breaks it (VERDICT r2 weakness 5). Here the
+A 1-D x-slab cut needs at least one x tile-layer per device, so a large
+device count or a squat/flat domain breaks it. Here the
 device grid is ``(Dx, Dy, Dz)`` and tiles are partitioned by GLOBAL layer
 cuts per axis (tensor-product boxes): cuts along each partitioned axis are
 shared by every device row/column, so each device has exactly one exchange
@@ -25,7 +25,9 @@ BoxTopology anywhere it accepts a SlabTopology; scatter/gather and the
 replicated-coarse multigrid hierarchy are shared unchanged.
 
 Reference scope: the reference is single-GPU (SURVEY §5.8); this is the
-TPU-native scale-out path for BASELINE config 5 pods (SURVEY §7.2 phase 5).
+scale-out path for domains a 1-D slab cut cannot split (SURVEY §7.2 phase
+5). The device grid is a logical decomposition: with all-to-all links
+(NVLink) it need not match any physical topology.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Multi-chip scaling: tile-axis sharding over a JAX device mesh.
+"""Multi-device scaling: tile-axis sharding over a JAX device mesh.
 
 The reference is single-GPU with no distributed backend (SURVEY §2.7/§5.8);
-scaling here is designed TPU-first instead of ported:
+scaling here is designed for a device mesh instead of ported:
 
 - Fields ``[T, 8, 8, 8, ...]`` are sharded on the leading tile axis over the
   ``"x"`` mesh axis. Packed tile keys sort x-major (core/coords.py), so

@@ -1,7 +1,9 @@
 """Explicit slab decomposition: shard_map + ppermute ghost-tile exchange.
 
-The reference is single-GPU (SURVEY §5.8); this is the TPU-native scale-out
-design (SURVEY §7.2 phase 5, BASELINE config 5):
+The reference is single-GPU (SURVEY §5.8); this is the multi-device
+scale-out design (SURVEY §7.2 phase 5, BASELINE config 5), on a 1-D mesh
+whose devices are all linked to each other (NVLink between the GPUs of one
+host), so the mesh follows the decomposition alone:
 
 - Active tiles are partitioned into D contiguous **x-slabs** (packed keys
   sort x-major, so slab = contiguous key range) balanced by tile count,
@@ -11,14 +13,14 @@ design (SURVEY §7.2 phase 5, BASELINE config 5):
   pad..., trash]`` — still key-sorted, so all single-device machinery
   (sorted lookup, neighbor table, halo gathers, local samplers) runs
   unchanged on the local slice.
-- **Ghost refresh** = one ``lax.ppermute`` per direction over the ICI ring:
+- **Ghost refresh** = one ``lax.ppermute`` per direction along the mesh:
   owners push their boundary-layer tiles into the neighbors' ghost rows.
   This is the distributed analog of the reference's shared-memory halo load
   (`/root/reference/src/Cuda/Kernel.cu:539-548`) — ghosts refresh before
   every halo-consuming op and every pressure sweep.
 - Compute runs redundantly on ghost rows and is masked out of outputs; only
   the refresh communicates. Per-step traffic = boundary layers only
-  (2 x-layers per device per refresh), riding ICI.
+  (2 x-layers per device per refresh).
 
 Capacities are padded to a common power-of-two so arrays stack to
 ``[D, Tl, ...]`` and shard on axis 0 of a 1-D mesh.

@@ -87,14 +87,8 @@ def step_impl(
     if sdf is not None:
         vel = refresh(col.enforce_collision(topo, vel, sdf, inv_dx))
 
-    # dot-precision tier for the sampling kernels: "parity"/"strict" -> true
-    # f32 MXU passes; "balanced" -> manual bf16x3 (~1e-5 rel, ~2x faster);
-    # "fast" -> single bf16 pass (~4e-3 rel, production speed)
-    fast = {"parity": "strict", "balanced": "balanced", "fast": "fast"}.get(
-        params.precision, "strict"
-    )
     # 1-2. velocity self-advection + vorticity confinement
-    u_star = adv.advect_velocity(topo, vel, dt, inv_dx, sdf, fast=fast)
+    u_star = adv.advect_velocity(topo, vel, dt, inv_dx, sdf)
     u_star = refresh(u_star)
     u_star = stn.vorticity_confinement(
         topo, u_star, dt, inv_dx, c.vorticity_scale, c.factor_scale
@@ -123,7 +117,7 @@ def step_impl(
     # 5. pressure solve + projection
     div = refresh(div)
     # None (not the identity closure) tells the solvers no exchange is
-    # needed, enabling the fused whole-solve kernel
+    # needed, so the single-device pressure kernel can run
     rf_solver = None if refresh is _identity else refresh
     if params.pressure_solver == "mg" and hierarchy:
         from hnanosolver_tpu.ops.multigrid import solve_pressure_mg
@@ -138,7 +132,7 @@ def step_impl(
     else:
         p = prs.solve_pressure(
             topo, div, params.iterations, params.voxel_size, params.omega,
-            refresh=rf_solver, halo_lag=params.effective_halo_lag,
+            refresh=rf_solver,
         )
     p = refresh(p)
     u_star = refresh(u_star)
@@ -156,7 +150,7 @@ def step_impl(
     sdf_in = to_advect.pop(COLLISION_FIELD, None)
     to_advect = {k: refresh(v) for k, v in to_advect.items()}
     advected = adv.advect_scalars_fused(
-        topo, vel_out, to_advect, dt, inv_dx, sdf, fast=fast
+        topo, vel_out, to_advect, dt, inv_dx, sdf
     )
     if sdf_in is not None:
         advected[COLLISION_FIELD] = sdf_in  # preserved, not zeroed (see above)
@@ -171,13 +165,13 @@ def step(
     params: SolverParams,
     hierarchy: tuple = (),
 ) -> FieldState:
-    """One full simulation step on one chip. Pure function: state in,
+    """One full simulation step on one device. Pure function: state in,
     state out. See ``step_impl`` for the pipeline."""
     return step_impl(topo, state, params, hierarchy)
 
 
 # frame-loop variant: DONATES the input state's buffers (the old state is
-# dead once the new one exists), halving resident field HBM — at
+# dead once the new one exists), halving resident field memory — at
 # 1024^3-class domains this is the difference between fitting and OOM.
 # Do not touch the passed state after calling (models.run_* use this).
 step_donated = partial(
@@ -210,27 +204,18 @@ def advect_velocity(topo: Topology, vel: jax.Array, dt: float, voxel_size: float
     return adv.advect_velocity(topo, vel, dt, 1.0 / voxel_size)
 
 
-@partial(jax.jit, static_argnames=("iterations", "voxel_size", "halo_lag"))
+@partial(jax.jit, static_argnames=("iterations", "voxel_size"))
 def project(
-    topo: Topology, vel: jax.Array, iterations: int, voxel_size: float,
-    halo_lag: int = 5,
+    topo: Topology, vel: jax.Array, iterations: int, voxel_size: float
 ) -> jax.Array:
     """HNanoProjectNonDivergent: divergence -> RBGS -> gradient subtraction
-    (`/root/reference/src/Cuda/PressureProjection.cu:9-79`).
-
-    ``halo_lag=5`` matches the production step (residual-equal to the
-    textbook solve at 50 iterations — config.halo_lag doc); the per-sweep
-    fresh-halo path measured ~190x slower PER SWEEP at 253k tiles
-    (probe r4/105: 6 gathers + a launch per color sweep)."""
+    (`/root/reference/src/Cuda/PressureProjection.cu:9-79`)."""
     inv_dx = 1.0 / voxel_size
     div = stn.divergence(topo, vel, inv_dx)
     import math
 
     omega = 2.0 / (1.0 + math.sin(3.14159 * voxel_size))
-    p = prs.solve_pressure(
-        topo, div, iterations, voxel_size, omega,
-        halo_lag=halo_lag if iterations % halo_lag == 0 else 1,
-    )
+    p = prs.solve_pressure(topo, div, iterations, voxel_size, omega)
     return stn.subtract_pressure_gradient(topo, vel, p, inv_dx)
 
 

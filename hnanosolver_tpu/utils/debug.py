@@ -60,8 +60,9 @@ def check_background_invariant(topo: Topology, state: FieldState, atol=0.0):
 
 def check_determinism(step_fn: Callable, *args, runs: int = 2) -> None:
     """Run the jitted step twice on identical inputs and demand bitwise
-    identical outputs (XLA on TPU is deterministic for this program class;
-    a mismatch indicates a nondeterministic custom kernel or donation bug)."""
+    identical outputs (the step uses no atomics or run-to-run-varying
+    reductions; a mismatch indicates a nondeterministic kernel or a
+    donation bug)."""
     ref = None
     for _ in range(runs):
         out = jax.block_until_ready(step_fn(*args))

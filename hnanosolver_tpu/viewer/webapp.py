@@ -7,8 +7,8 @@ a mouse-orbit camera and a performance panel
 `HNanoViewer/shaders/fragment_shader.frag:13-60`,
 `HNanoViewer/src/OpenVDBLoader.cpp:19-86` for the texture bake).
 
-This is the TPU-framework equivalent with the same architecture mapped to
-what a headless TPU host can serve: the dense-texture bake runs on device
+This is the equivalent with the same architecture mapped to what a
+headless accelerator host can serve: the dense-texture bake runs on device
 (core/convert.tiles_to_dense — the analog of OpenVDBLoader::VDBToTexture),
 and the interactive front end is a WebGL2 fragment-shader raymarcher
 (written from scratch; same classic front-to-back alpha accumulation, 256
@@ -109,8 +109,8 @@ def live_source(scenario: str, shape=(256, 256, 256), params=None, cfg=None) -> 
     """A steppable plume/fire simulation as a volume source.
 
     ``fire`` runs the REAL fire model (models.fire: burner disk, combustion
-    defaults, burner keep-tiles) — not a hotter plume (round-2 ADVICE: the
-    live view showed a different simulation than ``cli fire``)."""
+    defaults, burner keep-tiles) — not a hotter plume, so the live view
+    shows the same simulation as ``cli fire``."""
     from hnanosolver_tpu.config import SolverParams
     from hnanosolver_tpu.core.convert import tiles_to_dense
     from hnanosolver_tpu.models import plume as P
@@ -218,7 +218,7 @@ def file_source(path: str, shape=None) -> VolumeSource:
 # ---------------------------------------------------------------------------
 
 PAGE = r"""<!DOCTYPE html>
-<html><head><meta charset="utf-8"><title>hnanosolver-tpu viewer</title>
+<html><head><meta charset="utf-8"><title>hnanosolver viewer</title>
 <style>
   body { margin:0; background:#101014; color:#cfd2d6; font:13px monospace; overflow:hidden }
   #hud { position:fixed; top:10px; left:10px; background:#1a1c22cc; padding:10px 14px;
@@ -232,7 +232,7 @@ PAGE = r"""<!DOCTYPE html>
 <body>
 <canvas id="gl"></canvas>
 <div id="hud">
-  <div><b>hnanosolver-tpu viewer</b></div>
+  <div><b>hnanosolver viewer</b></div>
   <div id="perf">render: - ms (- fps)</div>
   <div id="sim"></div>
   <div>density <input id="dscale" type="range" min="0.1" max="12" step="0.1" value="4">

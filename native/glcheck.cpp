@@ -7,9 +7,8 @@
 // compile + link (hard-fails on any GLSL error), upload the R8 3D density/
 // emission textures exactly as the page's texImage3D call does, draw the
 // same fullscreen triangle with the same uniform set and camera model, and
-// read back a PPM. The round-2 verdict's risk — "shader-in-a-string code
-// that has never executed in a GL context is unproven" — is closed by
-// executing it here. Parity target: the reference's GL viewer,
+// read back a PPM. Shader-in-a-string code that has never executed in a GL
+// context is unproven; this harness executes it. Parity target: the reference's GL viewer,
 // /root/reference/HNanoViewer/src/HNanoViewer.cpp:106-362.
 //
 // Everything is resolved at runtime via dlopen/eglGetProcAddress (this

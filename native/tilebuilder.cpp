@@ -1,4 +1,4 @@
-// Native host-side tile builder: the TPU framework's analog of the
+// Native host-side tile builder: this framework's analog of the
 // reference's IndexGridBuilder (/root/reference/src/Utils/GridBuilder.hpp:21-250)
 // — encode sparse voxel data (coordinate list + per-field values) into the
 // dense-per-tile SoA layout the device kernels consume, and decode back.

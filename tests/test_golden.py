@@ -33,8 +33,7 @@ def test_five_step_golden(rng):
     }
     # dt/temps keep trace displacements under the sparse path's 7-voxel
     # CFL clamp (the dense oracle does not clamp — documented deviation)
-    params = SolverParams(dt=0.1, iterations=8, voxel_size=0.5,
-                          precision="parity")
+    params = SolverParams(dt=0.1, iterations=8, voxel_size=0.5)
 
     topo = build_topology_dense((N, N, N))
     state = FieldState(

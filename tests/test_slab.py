@@ -218,7 +218,7 @@ def test_sharded_mg_tol_converges(rng, mesh):
 
 @pytest.mark.slow
 def test_sharded_step_fast_and_sdf(rng, mesh):
-    """fast precision + collision SDF through the unified sharded step."""
+    """Collision SDF through the unified sharded step."""
     from hnanosolver_tpu.core.layout import positions_flat
     from hnanosolver_tpu.parallel.slab import sharded_step
 
@@ -229,8 +229,7 @@ def test_sharded_step_fast_and_sdf(rng, mesh):
     sphere = (jnp.sqrt((px - 60) ** 2 + (py - 12) ** 2 + (pz - 12) ** 2) - 6.0)
     state = state.with_scalar("collision_sdf", sphere * m)
     params = SolverParams(
-        dt=0.2, iterations=3, voxel_size=0.5, precision="fast",
-        has_collision=True,
+        dt=0.2, iterations=3, voxel_size=0.5, has_collision=True,
     )
     from hnanosolver_tpu.solver import step
 

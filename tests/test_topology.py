@@ -133,7 +133,7 @@ def test_pytree_roundtrip():
 
 def test_large_capacity_policy_divisibility():
     """Above 2048 tiles, capacity uses 25% slack rounded to 2048 — and must
-    stay divisible by the advection chunk and pallas group sizes."""
+    stay divisible by the advection chunk."""
     from hnanosolver_tpu.core.topology import _round_capacity
 
     for n in (2100, 4196, 33656, 100000):
@@ -144,55 +144,3 @@ def test_large_capacity_policy_divisibility():
     # small counts stay power-of-two
     assert _round_capacity(5) == 16
     assert _round_capacity(1000) == 1024
-
-
-def test_dual_plan_matches_halfshift_oracle():
-    """chunk_dsrc/chunk_ldual: for every active tile t and corner delta, the
-    octant-masked 8-way select + XOR-4 lane permutation of the dual row's
-    sources reconstructs S[t+delta][l] = f[(t+delta)*8 + l - 4] exactly
-    (background 0 outside the domain) — the half-shifted window rows the
-    narrow megakernel samples from (ops/pallas_bfecc.build_table_dual)."""
-    import numpy as np
-
-    from hnanosolver_tpu.core.topology import _DUAL_OFFSETS, build_topology
-
-    rng = np.random.default_rng(5)
-    box = np.array([(x, y, z) for x in range(5) for y in range(4)
-                    for z in range(4)])
-    topo = build_topology(box[rng.random(len(box)) < 0.6])
-    T = topo.capacity
-    nc, Ud, _ = topo.chunk_dsrc.shape
-    C_ = T // nc
-    n = int(topo.n_active)
-    f = rng.standard_normal((T, 512)).astype(np.float32)
-    f[0] = 0.0  # null row = background
-    orig = np.asarray(topo.origins)
-    dsrc = np.asarray(topo.chunk_dsrc)
-    ldual = np.asarray(topo.chunk_ldual)
-
-    # dense oracle over the bounding box (+1 tile halo)
-    from hnanosolver_tpu.core.topology import lookup_tiles
-
-    lane = np.arange(512)
-    lx, ly, lz = lane // 64, (lane // 8) % 8, lane % 8
-    perm = lane ^ 292
-
-    def dual_row(c, u):
-        W = np.zeros(512, np.float32)
-        for j in range(8):
-            bx, by, bz = _DUAL_OFFSETS[j]
-            m = ((lx < 4) == bx) & ((ly < 4) == by) & ((lz < 4) == bz)
-            W = np.where(m, f[dsrc[c, u, j]], W)
-        return W[perm]
-
-    for r in rng.choice(np.arange(1, n + 1), 8, replace=False):
-        c = r // C_
-        for j in (0, 2, 5, 7):
-            S = dual_row(c, ldual[r, j])
-            d = orig[r] + _DUAL_OFFSETS[j]
-            for loc in ((0, 0, 0), (3, 7, 2), (7, 4, 4), (4, 0, 7)):
-                v = d * 8 + np.array(loc) - 4
-                row = int(lookup_tiles(topo, v // 8))
-                want = f[row, (v[0] % 8) * 64 + (v[1] % 8) * 8 + v[2] % 8]
-                got = S[loc[0] * 64 + loc[1] * 8 + loc[2]]
-                assert got == want, (r, j, loc)

@@ -1,9 +1,9 @@
 """Scale proof: slab-sharded step at production tile counts on a virtual
-8-device CPU mesh, asserted against the single-device step (round-1 VERDICT
-item 5 — the round-1 check ran at toy size, 78 tiles).
+8-device CPU mesh, asserted against the single-device step (a toy-size
+mesh check leaves production tile counts unproven).
 
 Usage: python tools/scale_proof.py [n_tiles] [iterations]
-Writes a summary line per check; commit the output as SCALE_r02.md.
+Writes a summary line per check.
 """
 
 from __future__ import annotations
